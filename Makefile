@@ -19,11 +19,10 @@ bundle:
 test:
 	$(PYTHON) -m pytest tests/ -x -q
 
-# compiled-Mosaic parity on the real chip (skips cleanly off-TPU):
-# the interpret-mode claims of tests/ re-verified against the compiled
-# kernels (round-2 verdict, weak #1)
-test-tpu:
-	$(PYTHON) -m pytest tests_tpu/ -x -q
+# on-card suite: the compiled sweep kernel and the runtime paths on the
+# GPU backend (each test skips, with its reason, on any other)
+test-gpu:
+	$(PYTHON) -m pytest tests_gpu/ -x -q
 
 bench:
 	$(PYTHON) bench.py
@@ -45,4 +44,4 @@ clean:
 	$(MAKE) -C native clean
 	rm -rf build
 
-.PHONY: all native bundle test test-tpu bench man install clean
+.PHONY: all native bundle test test-gpu bench man install clean

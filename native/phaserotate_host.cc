@@ -1,6 +1,6 @@
 // Native host-side runtime for phaserotate_tpu.
 //
-// The TPU owns the DSP math; this library owns the host runtime pieces the
+// The device owns the DSP math; this library owns the host runtime pieces the
 // reference implements natively: the SIMD peak scan (the role of
 // cli/dsp_peak_calc.h), bulk PCM <-> float conversion and channel
 // (de)interleaving for the WAV codec hot path, and a lock-free

@@ -1,7 +1,7 @@
-// phaserotate_tpu.so — loadable LV2 plugin shim bridging to the TPU engine.
+// phaserotate_tpu.so — loadable LV2 plugin shim bridging to the GPU engine.
 //
 // The reference ships its DSP as a host-loadable binary
-// (src/phaserotate.c:860-893); a TPU engine cannot run inside the host's
+// (src/phaserotate.c:860-893); a GPU engine cannot run inside the host's
 // process, so this shim implements the same LV2 ABI surface and forwards
 // audio over the engine daemon's Unix socket (phaserotate_tpu/bridge.py
 // documents the wire protocol; native/prt_protocol.h is the shared

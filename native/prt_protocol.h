@@ -23,7 +23,7 @@ namespace prt {
 // daemon (or a full accept backlog) blocks the calling host forever —
 // for the LV2 shim that means a frozen audio host instead of the
 // documented bypass.  The default is generous because the daemon's
-// first block on a cold TPU can take tens of seconds to compile; tune
+// first block on a cold device can take tens of seconds to compile; tune
 // with PHASEROTATE_TPU_TIMEOUT_MS (0 disables).
 inline long timeout_ms() {
   const char* e = getenv("PHASEROTATE_TPU_TIMEOUT_MS");

@@ -1,7 +1,7 @@
 // prt_ui.so — loadable LV2UI launcher for the browser GUI.
 //
 // The reference ships an embedded OpenGL LV2UI (gui/phaserotate.c:
-// 1136-1309 descriptor, lv2ttl/manifest.gui.in).  The TPU framework's
+// 1136-1309 descriptor, lv2ttl/manifest.gui.in).  The framework's
 // graphical surface is the daemon-served browser page (phaserotate_tpu/
 // gui/web.py): dials, gradient meters, link, reset-peaks — driven by the
 // live engine over the real protocol.  This binary makes that surface a

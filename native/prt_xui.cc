@@ -674,7 +674,7 @@ struct Ui {
                        x11::kButtonReleaseMask | x11::kPointerMotionMask |
                        x11::kButtonMotionMask |
                        x11::kStructureNotifyMask);
-    X.XStoreName(dpy, win, "Phase Rotate (TPU)");
+    X.XStoreName(dpy, win, "Phase Rotate (GPU)");
     gc = X.XCreateGC(dpy, win, 0, nullptr);
     img = X.XCreateImage(dpy, X.XDefaultVisual(dpy, scr),
                          X.XDefaultDepth(dpy, scr), 2 /*ZPixmap*/, 0,

@@ -3,8 +3,8 @@
 // Same posture as flac_decode.cc: the pure-Python decoder
 // (phaserotate_tpu/io/vorbis.py) is the reference implementation and
 // owns the error-message surface; this decoder exists because a fleet
-// pulling lossy files from disk is decode-bound in Python (~1.3
-// files/s/core measured) while the reference CLI gets every format at
+// pulling lossy files from disk is decode-bound in Python, while
+// the reference CLI gets every format at
 // native speed through libsndfile (/root/reference/cli/phase-rotate.cc:33).
 // Implemented independently from the public Vorbis I specification
 // (xiph.org) — not derived from libvorbis; the algorithm mirrors the

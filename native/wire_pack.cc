@@ -22,7 +22,7 @@
 //
 // Reference workload: the CLI fleet search streams every file from
 // disk (/root/reference/cli/phase-rotate.cc:573-587); this transport
-// is the TPU build's answer to shipping that stream over a slow
+// is the device build's answer to shipping that stream over a slow
 // host->device link.
 
 #include <cstdint>

@@ -1,4 +1,4 @@
-"""phaserotate_tpu — TPU-native audio phase-rotation framework.
+"""phaserotate_tpu — accelerator audio phase-rotation framework in JAX.
 
 A ground-up JAX/XLA/Pallas re-design with the capabilities of
 x42/phaserotate.lv2: arbitrary-angle phase rotation of audio (preserving
@@ -14,7 +14,7 @@ Public surface (mirrors the reference's capabilities, see BASELINE.json):
 * :mod:`phaserotate_tpu.stream` — lax.scan streaming engine with the LV2
   plugin's block/latency/interpolation semantics.
 * :mod:`phaserotate_tpu.parallel` — pjit/shard_map batch processing over
-  TPU meshes.
+  device meshes.
 """
 
 from .core import (

@@ -3,7 +3,7 @@
 Drop-in workflow replacement for the reference CLI
 (cli/phase-rotate.cc:489-1011): same flags, same validation rules, same
 two-step analysis semantics (coarse stride + fine refinement — evaluated
-here from one batched TPU sweep), same gnuplot-format verbose output, same
+here from one batched device sweep), same gnuplot-format verbose output, same
 result formatting, same metadata-preserving write path.
 
 Differences (documented):
@@ -45,7 +45,7 @@ def _usage_epilog() -> str:
 def _build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="phase-rotate",
-        description="Audio File Phase Rotation Util (TPU-native).",
+        description="Audio File Phase Rotation Util (JAX).",
         epilog=_usage_epilog(),
         formatter_class=argparse.RawDescriptionHelpFormatter,
     )
@@ -106,9 +106,11 @@ def _print_gnuplot_row(table: np.ndarray, a: int, n_channels: int) -> None:
 
 
 def main(argv: Optional[List[str]] = None) -> int:
+    from .core.plancache import enable_compile_cache
     from .utils.platform import apply_platform_env
 
     apply_platform_env()
+    enable_compile_cache()
 
     # PHASEROTATE_TPU_PROFILE=<dir> captures a jax.profiler trace of the
     # whole run (TensorBoard format) — the framework's tracing hook

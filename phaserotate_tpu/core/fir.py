@@ -95,7 +95,7 @@ def partition_fir_spectra(length: int, parsiz: int) -> jnp.ndarray:
     """Partitioned FIR spectra ``(n_segm, parsiz+1, 2)`` float32 ri-format.
 
     Real/imag are stacked on the last axis because complex64 must never
-    cross the host<->device boundary on this TPU runtime (utils/cplx.py);
+    cross the host<->device boundary (utils/cplx.py);
     combine with :func:`phaserotate_tpu.utils.from_ri` inside jit.
     """
     c = _partition_fir_spectra_np(length, parsiz)

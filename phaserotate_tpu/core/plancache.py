@@ -12,11 +12,15 @@ real-time callback.  This module provides the same discipline:
   session will need *before* entering the processing loop (the plugin's
   instantiate-time planning);
 * :func:`enable_persistent_cache` — on-disk compilation cache so plans
-  survive process restarts (FFTW wisdom's role).
+  survive process restarts (FFTW wisdom's role);
+* :func:`enable_compile_cache` — the rule every entry point applies
+  first: ``JAX_COMPILATION_CACHE_DIR`` when the environment sets it,
+  otherwise one fixed directory inside the checkout.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Iterable, Optional, Tuple
 
 import jax
@@ -24,7 +28,13 @@ import numpy as np
 
 from .sizes import OfflineGeometry, StreamGeometry
 
-__all__ = ["warmup_stream", "warmup_offline", "enable_persistent_cache"]
+__all__ = ["warmup_stream", "warmup_offline", "enable_persistent_cache",
+           "enable_compile_cache", "CHECKOUT_CACHE_DIR"]
+
+# fixed, never per-process: the cache key includes nothing that moves
+CHECKOUT_CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))), ".jax_cache")
 
 
 def warmup_stream(geom: StreamGeometry, channels: int = 1,
@@ -85,16 +95,29 @@ def warmup_offline(
 
     for n in lengths:
         x = jnp.zeros((channels, int(n)), jnp.float32)
-        t, r = _sweep_impl(x, geom, 4096)  # the production tile
+        t, r = _sweep_impl(x, geom)
         t.block_until_ready()
         _apply_impl(x, jnp.zeros((channels,), jnp.int32), geom)
 
 
-def enable_persistent_cache(path: str = "~/.cache/phaserotate_tpu_xla") -> None:
-    """Persist compiled executables across processes (FFTW wisdom role)."""
-    import os
-
+def enable_persistent_cache(path: str) -> None:
+    """Persist compiled executables in ``path`` across processes (FFTW
+    wisdom role)."""
     p = os.path.expanduser(path)
     os.makedirs(p, exist_ok=True)
     jax.config.update("jax_compilation_cache_dir", p)
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+
+
+def enable_compile_cache() -> str:
+    """Apply the compile-cache rule of the entry points; returns the
+    directory in use.
+
+    With ``JAX_COMPILATION_CACHE_DIR`` set, JAX reads it itself and this
+    sets nothing.  Otherwise the cache goes to :data:`CHECKOUT_CACHE_DIR`.
+    """
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR", "").strip()
+    if env:
+        return env
+    enable_persistent_cache(CHECKOUT_CACHE_DIR)
+    return CHECKOUT_CACHE_DIR

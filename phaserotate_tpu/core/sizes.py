@@ -1,6 +1,6 @@
 """Sample-rate adaptive FFT/FIR sizing.
 
-TPU-native re-design of the reference's sizing tables:
+Re-design of the reference's sizing tables:
 
 * Plugin (streaming) geometry — reference src/phaserotate.c:278-297:
   rate < 64 kHz  -> fftlen  512, firlen 3072

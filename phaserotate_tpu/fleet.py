@@ -304,9 +304,11 @@ def apply_paths(
 
 
 def main(argv=None) -> int:
+    from .core.plancache import enable_compile_cache
     from .utils.platform import apply_platform_env
 
     apply_platform_env()
+    enable_compile_cache()
     ap = argparse.ArgumentParser(
         prog="phase-rotate-fleet",
         description="Batched minimum-peak analysis over many files "

@@ -2,7 +2,7 @@
 
 The reference embeds an OpenGL LV2UI in the DAW (gui/phaserotate.c:
 1136-1309: custom dials, gradient meters, link checkbox, click-to-reset
-peaks).  A TPU engine lives behind a daemon, so the framework's graphical
+peaks).  A GPU engine lives behind a daemon, so the framework's graphical
 surface is served over HTTP instead of embedded: the SAME widget models
 (gui/widgets.py), deflection maps (gui/deflect.py), and SVG renderers
 (gui/render.py meter_svg/faceplate_svg) drive a browser page attached to
@@ -89,7 +89,7 @@ class HostSurface:
 
 
 _PAGE = """<!doctype html>
-<html><head><meta charset="utf-8"><title>phaserotate tpu</title>
+<html><head><meta charset="utf-8"><title>phaserotate</title>
 <style>
  body { background:#1a1a1a; color:#ddd; font:13px sans-serif; margin:16px }
  .session { border:1px solid #333; border-radius:6px; padding:10px;
@@ -101,7 +101,7 @@ _PAGE = """<!doctype html>
  label { color:#aaa }
  .offline { color:#a66 }
 </style></head><body>
-<h3>Phase Rotate (TPU)</h3>
+<h3>Phase Rotate (GPU)</h3>
 <div id="sessions"><i>connecting&hellip;</i></div>
 <script>
 const S = document.getElementById('sessions');

@@ -78,12 +78,14 @@ class StandaloneHost:
 
 
 def main(argv: Optional[List[str]] = None) -> int:
+    from .core.plancache import enable_compile_cache
     from .utils.platform import apply_platform_env
 
     apply_platform_env()
+    enable_compile_cache()
     ap = argparse.ArgumentParser(
         prog="phase-rotate-host",
-        description="Standalone streaming host for the TPU phase rotator.")
+        description="Standalone streaming host for the GPU phase rotator.")
     ap.add_argument("infile")
     ap.add_argument("outfile", nargs="?")
     ap.add_argument("--angle", "-a", type=float, default=0.0,

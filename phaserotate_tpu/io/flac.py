@@ -76,11 +76,32 @@ def _crc8(data: bytes) -> int:
     return int(c)
 
 
+# _CRC16_SHIFT[l][c]: register c after 2**l more zero bytes (c * x^(8*2**l)
+# mod the generator), built lazily by squaring the one-byte step
+_CRC16_SHIFT: List[np.ndarray] = []
+
+
 def _crc16(data: bytes) -> int:
-    c = 0
-    for b in data:
-        c = ((c << 8) & 0xFFFF) ^ int(_CRC16[((c >> 8) ^ b) & 0xFF])
-    return c
+    """FLAC frame CRC-16 as a log-depth tree: the CRC is linear with a
+    zero initial register, so crc(A+B) = shift(crc(A), len(B)) ^ crc(B),
+    and leading zero bytes change nothing."""
+    buf = np.frombuffer(bytes(data), np.uint8)
+    if not len(buf):
+        return 0
+    levels = (len(buf) - 1).bit_length()
+    while len(_CRC16_SHIFT) < levels:
+        if _CRC16_SHIFT:
+            prev = _CRC16_SHIFT[-1]
+            _CRC16_SHIFT.append(prev[prev])
+        else:
+            c = np.arange(1 << 16, dtype=np.int64)
+            _CRC16_SHIFT.append(
+                ((c << 8) & 0xFFFF) ^ _CRC16[c >> 8].astype(np.int64))
+    c = np.zeros(1 << levels, np.int64)
+    c[len(c) - len(buf):] = _CRC16[buf]
+    for shift in _CRC16_SHIFT[:levels]:
+        c = shift[c[0::2]] ^ c[1::2]
+    return int(c[0])
 
 
 # ---- bit I/O ---------------------------------------------------------------
@@ -150,6 +171,71 @@ class _BitWriter:
 
     def write_unary(self, q: int) -> None:
         self.write_uint(1, q + 1)  # q zeros then a 1
+
+    def write_fields(self, values: np.ndarray, widths: np.ndarray) -> None:
+        """Append many right-aligned fields at once: field i holds
+        ``values[i]`` (non-negative, below 2**32 and fitting its width)
+        in ``widths[i] >= 1`` bits."""
+        widths = np.asarray(widths, np.int64)
+        total = int(widths.sum())
+        if not total:
+            return
+        # OR each value into the big-endian 64-bit word holding its last
+        # bit; a field straddling a word boundary spills its high bits
+        # into the word before
+        last = np.cumsum(widths) - 1
+        word = last >> 6
+        up = (63 - (last & 63)).astype(np.uint64)
+        v = np.asarray(values).astype(np.uint64)
+        spill = np.uint64(64) - up
+        high = np.where(spill < 64, v >> np.minimum(spill, np.uint64(63)),
+                        np.uint64(0))
+        words = np.zeros(int(word[-1]) + 1, np.uint64)
+        for idx, part in ((word, v << up), (word - 1, high)):
+            keep = part != 0
+            idx, part = idx[keep], part[keep]
+            if len(idx):
+                first = np.concatenate(
+                    [[0], np.flatnonzero(np.diff(idx)) + 1])
+                words[idx[first]] |= np.bitwise_or.reduceat(part, first)
+        acc = int.from_bytes(words.astype(">u8").tobytes(), "big")
+        self.chunks.append((acc >> (64 * len(words) - total), total))
+        self.nbits += total
+
+    def align(self) -> None:
+        self.pos = (self.pos + 7) & ~7
+
+
+class _BitWriter:
+    def __init__(self):
+        self.chunks: List[Tuple[int, int]] = []  # (value, nbits)
+        self.nbits = 0
+
+    def write_uint(self, value: int, n: int) -> None:
+        if n:
+            self.chunks.append((value & ((1 << n) - 1), n))
+            self.nbits += n
+
+    def write_unary(self, q: int) -> None:
+        self.write_uint(1, q + 1)  # q zeros then a 1
+
+    def write_fields(self, values: np.ndarray, widths: np.ndarray) -> None:
+        """Append many right-aligned fields at once: field i holds
+        ``values[i]`` (non-negative, fitting its width) in ``widths[i]``
+        bits."""
+        widths = np.asarray(widths, np.int64)
+        total = int(widths.sum())
+        if not total:
+            return
+        values = np.asarray(values, np.int64)
+        ends = np.cumsum(widths)
+        bits = np.zeros(total, np.uint8)
+        for j in range(int(values.max()).bit_length()):
+            hit = ((values >> j) & 1).astype(bool)
+            bits[ends[hit] - 1 - j] = 1
+        acc = int.from_bytes(np.packbits(bits).tobytes(), "big")
+        self.chunks.append((acc >> ((-total) % 8), total))
+        self.nbits += total
 
     def align(self) -> None:
         pad = (-self.nbits) % 8
@@ -526,45 +612,47 @@ def _write_utf8_number(bw: _BitWriter, v: int) -> None:
         bw.write_uint(0x80 | ((v >> (6 * i)) & 0x3F), 8)
 
 
-def _best_rice_param(resid: np.ndarray) -> int:
-    """Parameter minimizing the Rice-coded size (computed exactly from
-    the zigzagged magnitudes)."""
-    z = (np.abs(resid.astype(np.int64)) << 1) - (resid < 0)
-    best_k, best_cost = 0, None
-    for k in range(0, 30):
-        cost = int(np.sum(z >> k)) + (k + 1) * len(z)
-        if best_cost is None or cost < best_cost:
-            best_k, best_cost = k, cost
-        elif cost > best_cost * 2:
-            break
-    return best_k
+# the Rice parameters a method-0 partition header (4 bits, 15 = escape)
+# can carry
+_RICE_KS = np.arange(15, dtype=np.int32)
 
 
-def _write_residual(bw: _BitWriter, resid: np.ndarray, order: int,
-                    blocksize: int) -> None:
-    """Method 0 (4-bit params), partition order chosen so partitions are
-    ~256 samples (a common encoder default)."""
-    part_order = 0
-    while (blocksize >> (part_order + 1)) >= 256 and \
-            blocksize % (1 << (part_order + 1)) == 0 and \
-            (blocksize >> (part_order + 1)) > order:
-        part_order += 1
+def _rice_partitions(resid: np.ndarray, order: int, bs: int):
+    """Partitions ~256 samples (a common encoder default), each with the
+    parameter minimizing its exact Rice-coded size.
+
+    Returns (partition order, zigzagged residual, partition lengths,
+    parameters, total coded bits of the samples)."""
+    po = _partition_order(bs, order)
+    nparts = 1 << po
+    r = resid.astype(np.int64)
+    z = (np.abs(r) << 1) - (r < 0)
+    lens = np.full(nparts, bs >> po, np.int64)
+    lens[0] -= order  # the warm-up samples open the first partition
+    zp = np.concatenate([np.zeros(order, np.int64), z]).reshape(nparts, -1)
+    if z.max(initial=0) < (1 << 31):  # narrow shifts; sums widen anyway
+        zp = zp.astype(np.int32)
+    costs = ((zp[None] >> _RICE_KS[:, None, None]).sum(axis=-1).T
+             + (_RICE_KS + 1) * lens[:, None])
+    # cost is convex in k, so the first minimum over 0..14 is the
+    # unconstrained optimum clipped to the 4-bit field
+    ks = np.argmin(costs, axis=1)
+    return po, z, lens, ks, int(costs[np.arange(nparts), ks].sum())
+
+
+def _write_residual(bw: _BitWriter, parts) -> None:
+    """Method 0 (4-bit params) in the layout :func:`_rice_partitions`
+    returned, all samples packed in one pass."""
+    po, z, lens, ks, _ = parts
     bw.write_uint(0, 2)  # method 0
-    bw.write_uint(part_order, 4)
-    nparts = 1 << part_order
-    idx = 0
-    for p in range(nparts):
-        n = (blocksize >> part_order) - (order if p == 0 else 0)
-        part = resid[idx : idx + n]
-        idx += n
-        k = min(_best_rice_param(part), 14)
-        bw.write_uint(k, 4)
-        z = (np.abs(part.astype(np.int64)) << 1) - (part < 0)
-        for v in z:
-            v = int(v)
-            bw.write_unary(v >> k)
-            if k:
-                bw.write_uint(v & ((1 << k) - 1), k)
+    bw.write_uint(po, 4)
+    k = np.repeat(ks, lens)
+    # each sample: q = z >> k zeros, a one, then the k low bits of z
+    values = (1 << k) | (z & ((1 << k) - 1))
+    widths = (z >> k) + 1 + k
+    starts = np.concatenate([[0], np.cumsum(lens)[:-1]])
+    bw.write_fields(np.insert(values, starts, ks),
+                    np.insert(widths, starts, 4))
 
 
 def _fixed_residual(x: np.ndarray, order: int) -> np.ndarray:
@@ -575,8 +663,8 @@ def _fixed_residual(x: np.ndarray, order: int) -> np.ndarray:
 
 
 def _partition_order(bs: int, order: int) -> int:
-    """Partition order used by _write_residual (partitions ~256
-    samples) — shared so cost estimates match what gets written."""
+    """Partition order of the residual layout: partitions ~256
+    samples."""
     po = 0
     while (bs >> (po + 1)) >= 256 and bs % (1 << (po + 1)) == 0 and \
             (bs >> (po + 1)) > order:
@@ -584,19 +672,10 @@ def _partition_order(bs: int, order: int) -> int:
     return po
 
 
-def _residual_cost(resid: np.ndarray, order: int, bs: int) -> int:
-    """Exact Rice-coded bit count _write_residual would produce."""
-    po = _partition_order(bs, order)
-    cost = 2 + 4 + 4 * (1 << po)  # method + order + per-partition params
-    idx = 0
-    for p in range(1 << po):
-        n = (bs >> po) - (order if p == 0 else 0)
-        part = resid[idx : idx + n]
-        idx += n
-        k = min(_best_rice_param(part), 14)
-        z = (np.abs(part.astype(np.int64)) << 1) - (part < 0)
-        cost += int(np.sum(z >> k)) + (k + 1) * len(z)
-    return cost
+def _residual_cost(parts) -> int:
+    """Exact bit count _write_residual produces for these partitions."""
+    po, _, _, _, cost = parts
+    return 2 + 4 + 4 * (1 << po) + cost  # method, order, params, samples
 
 
 _MAX_LPC_ORDER = 12
@@ -810,9 +889,9 @@ def _encode_subframe(bw: _BitWriter, x: np.ndarray, bits: int,
         mag = int(np.sum(np.abs(_fixed_residual(x, order))))
         if best_mag is None or mag < best_mag:
             fixed_order, best_mag = order, mag
-    fixed_resid = _fixed_residual(x, fixed_order)
-    fixed_cost = (fixed_order * bits
-                  + _residual_cost(fixed_resid, fixed_order, bs))
+    fixed_parts = _rice_partitions(
+        _fixed_residual(x, fixed_order), fixed_order, bs)
+    fixed_cost = fixed_order * bits + _residual_cost(fixed_parts)
 
     # LPC candidate: Levinson error picks the order, then exact cost of
     # the quantized predictor (evaluating one order keeps encode fast)
@@ -834,17 +913,18 @@ def _encode_subframe(bw: _BitWriter, x: np.ndarray, bits: int,
             quant = _quantize_lpc(coefs[best_o - 1], _LPC_PRECISION)
             if quant is not None:
                 qcoefs, shift = quant
-                resid = _lpc_residual(x, qcoefs, shift)
+                parts = _rice_partitions(
+                    _lpc_residual(x, qcoefs, shift), best_o, bs)
                 cost = (best_o * bits + 4 + 5
                         + best_o * _LPC_PRECISION
-                        + _residual_cost(resid, best_o, bs))
+                        + _residual_cost(parts))
                 if cost < fixed_cost:
-                    lpc_choice = (best_o, qcoefs, shift, resid)
+                    lpc_choice = (best_o, qcoefs, shift, parts)
 
     bw.write_uint(0, 1)
     mask = (1 << bits) - 1
     if lpc_choice is not None:
-        order, qcoefs, shift, resid = lpc_choice
+        order, qcoefs, shift, parts = lpc_choice
         bw.write_uint(32 + (order - 1), 6)  # LPC
         bw.write_uint(0, 1)                 # no wasted bits
         for i in range(order):
@@ -854,10 +934,10 @@ def _encode_subframe(bw: _BitWriter, x: np.ndarray, bits: int,
         pmask = (1 << _LPC_PRECISION) - 1
         for qc in qcoefs:
             bw.write_uint(qc & pmask, _LPC_PRECISION)
-        _write_residual(bw, resid, order, bs)
+        _write_residual(bw, parts)
     else:
         bw.write_uint(8 + fixed_order, 6)  # FIXED
         bw.write_uint(0, 1)                # no wasted bits
         for i in range(fixed_order):
             bw.write_uint(int(x[i]) & mask, bits)
-        _write_residual(bw, fixed_resid, fixed_order, bs)
+        _write_residual(bw, fixed_parts)

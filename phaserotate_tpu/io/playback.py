@@ -4,7 +4,7 @@ The reference's standalone form is a JACK client (Makefile:250-257);
 this framework's hosts are offline-first, but ``hostapp --play`` can
 monitor through a real sound device when ALSA is present.  The binding
 loads ``libasound.so.2`` at runtime — environments without a sound
-stack (CI, TPU pods) simply get ``open_output() -> None`` and the host
+stack (CI, accelerator hosts) simply get ``open_output() -> None`` and the host
 falls back to paced simulation, which the README states explicitly.
 
 Uses the high-level snd_pcm_set_params API (float32-LE interleaved,

@@ -1,5 +1,5 @@
-"""Pallas TPU kernels for the hot inner loops."""
+"""Hand-written device kernels and the choice of implementation."""
 
-from .rotate_peak import peak_kernel, rotate_peak_sweep_kernel, use_interpret
+from .rotate_peak import rotate_peak_sweep_kernel
 
-__all__ = ["peak_kernel", "rotate_peak_sweep_kernel", "use_interpret"]
+__all__ = ["rotate_peak_sweep_kernel"]

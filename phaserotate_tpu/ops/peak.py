@@ -2,10 +2,11 @@
 
 XLA-level equivalents of the reference's hand-written SIMD peak kernels
 (cli/dsp_peak_calc.h — AVX/SSE2/NEON/vDSP ``dsp_compute_peak``) and of the
-rotated-peak evaluator (cli/phase-rotate.cc:98-121).  On TPU the VPU
-vectorizes the abs-max reduction and the MXU evaluates *all* candidate
-angles of the sweep as one matmul; see also kernels/rotate_peak.py for the
-fully-fused Pallas version.
+rotated-peak evaluator (cli/phase-rotate.cc:98-121).
+:func:`rotated_peak_sweep` is the plain reference every sweep
+implementation is tested against; :func:`rotated_peak_sweep_tiled` is the
+XLA implementation the sweep runs where no kernel is chosen
+(kernels/choice.py); kernels/rotate_peak.py is the fused GPU kernel.
 """
 
 from __future__ import annotations
@@ -14,7 +15,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-__all__ = ["compute_peak", "rotated_peak", "rotated_peak_sweep", "coeff_to_db"]
+__all__ = ["compute_peak", "rotated_peak", "rotated_peak_sweep",
+           "rotated_peak_sweep_tiled", "coeff_to_db"]
+
+# bound on the (rows, angles, tile) product one scan step materializes
+_TILE_ELEMS = 1 << 24
 
 
 def compute_peak(buf: jnp.ndarray, current=0.0) -> jnp.ndarray:
@@ -47,7 +52,7 @@ def rotated_peak_sweep(
         materialized in HBM.
 
     Returns (A,) float32 peaks — the whole 720-angle sweep of
-    cli/phase-rotate.cc:409-428 in one batched MXU pass.
+    cli/phase-rotate.cc:409-428 in one batched pass.
     """
     n = b0.shape[-1]
     n_chunks = -(-n // chunk)
@@ -67,6 +72,46 @@ def rotated_peak_sweep(
     init = jnp.zeros((cos_sin.shape[-1],), jnp.float32)
     peaks, _ = jax.lax.scan(body, init, stacked)
     return peaks
+
+
+def rotated_peak_sweep_tiled(
+    b0: jnp.ndarray,
+    b1: jnp.ndarray,
+    cos_sin: jnp.ndarray,
+) -> jnp.ndarray:
+    """Batched sweep in plain XLA: ``max_m |cos[a]*b0[..., m] +
+    sin[a]*b1[..., m]|`` as a broadcast multiply-add and abs-max over
+    sample tiles, exact float32 (no ``dot``, so no reduced-precision
+    matrix unit is involved).
+
+    Args:
+      b0, b1: (..., n) float32.
+      cos_sin: (2, A) float32.
+
+    Returns (..., A) float32.  The tile length adapts to the batch so one
+    scan step holds at most ``_TILE_ELEMS`` products.
+    """
+    batch_shape = b0.shape[:-1]
+    n = b0.shape[-1]
+    a = cos_sin.shape[-1]
+    rows = int(np.prod(batch_shape, dtype=np.int64))
+    tile = 1 << max(7, min(13, (_TILE_ELEMS // max(1, rows * a))
+                           .bit_length() - 1))
+    n_tiles = max(1, -(-n // tile))
+    pad = [(0, 0)] * len(batch_shape) + [(0, n_tiles * tile - n)]
+    # zero padding is exact: |0| never exceeds a peak
+    s = jnp.stack([jnp.pad(b0, pad), jnp.pad(b1, pad)])
+    s = jnp.moveaxis(s.reshape(2, rows, n_tiles, tile), 2, 0)
+    ca = cos_sin[0][:, None]
+    sa = cos_sin[1][:, None]
+
+    def body(acc, xs):  # xs: (2, rows, tile)
+        prod = ca * xs[0][:, None, :] + sa * xs[1][:, None, :]
+        return jnp.maximum(acc, jnp.max(jnp.abs(prod), axis=-1)), None
+
+    init = jnp.zeros((rows, a), jnp.float32)
+    peaks, _ = jax.lax.scan(body, init, s)
+    return peaks.reshape(*batch_shape, a)
 
 
 def coeff_to_db(coeff) -> jnp.ndarray:

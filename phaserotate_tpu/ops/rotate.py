@@ -19,7 +19,7 @@ Two methods:
 
 Both accept batched input ``(..., n)`` and broadcastable ``degrees`` so a
 whole batch of stems/channels rotates at independent angles in one XLA call
-(the TPU replacement for the reference's thread-per-channel fan-out,
+(in place of the reference's thread-per-channel fan-out,
 cli/phase-rotate.cc:437-444).
 """
 
@@ -70,15 +70,6 @@ def rotate_spectral(audio, degrees) -> jnp.ndarray:
     return _rotate_spectral_impl(x, _theta(degrees), x.shape[-1])
 
 
-def _on_tpu() -> bool:
-    """Dispatch predicate: the fused MXU kernel on TPU, the XLA-FFT path
-    elsewhere (where the Pallas kernel would fall back to the slow
-    interpreter).  Single source of truth: kernels/rotate_peak.on_tpu."""
-    from ..kernels.rotate_peak import on_tpu
-
-    return on_tpu()
-
-
 def hilbert_fir(
     audio,
     firlen: int,
@@ -91,25 +82,10 @@ def hilbert_fir(
     either end) see the zero-padded boundary exactly as a freshly-activated
     plugin instance would.
 
-    On TPU the convolution runs in the fused Pallas MXU kernel
-    (kernels/fused_conv.py, matmul-FFT pipeline entirely in VMEM);
-    elsewhere as batched XLA FFTs.  Both compute the identical linear
-    convolution (parity-tested <3e-6 in tests/test_kernels.py).
+    Single-partition OLA (partition == FIR support) as batched XLA FFTs.
     """
     x = jnp.asarray(audio, jnp.float32)
     lat = firlen // 2
-    if _on_tpu():
-        from ..kernels.fused_conv import (
-            fused_hilbert,
-            fused_parsiz_for,
-            supported_parsiz,
-        )
-
-        if supported_parsiz(fused_parsiz_for(firlen)):
-            full = fused_hilbert(x, firlen)
-            return full[..., lat : lat + x.shape[-1]]
-        # exotic FIR lengths (> 16384 taps) take the XLA path below
-    # single-partition OLA (partition == FIR support): batched XLA FFTs
     from ..core.fir import partition_fir_spectra
     from .convolve import partitioned_convolve
 
@@ -120,24 +96,6 @@ def hilbert_fir(
 
 @functools.partial(jax.jit, static_argnames=("firlen",))
 def _rotate_fir_impl(x: jnp.ndarray, turns: jnp.ndarray, firlen: int):
-    if _on_tpu():
-        from ..kernels.fused_conv import fused_rotate_fir, mix_supported
-        from ..kernels.stream_conv import (
-            fused_rotate_small,
-            stream_mix_supported,
-        )
-
-        if stream_mix_supported(firlen):
-            # direct-DFT small-geometry kernel: conv + group-delay +
-            # rotation mix in one VMEM pass at ~4.9 kflop/sample — the
-            # fastest path for every plugin FIR (doc/KERNELS.md)
-            return fused_rotate_small(x, turns, firlen)
-        if mix_supported(firlen):
-            # 4-step matmul-FFT kernel for FIRs the small kernel can't
-            # frame (same single-pass structure)
-            turns_b = jnp.broadcast_to(
-                jnp.asarray(turns, jnp.float32), x.shape[:-1])
-            return fused_rotate_fir(x, turns_b, firlen)
     sa, ca = _angles.sin_cos_turns(turns)
     h = hilbert_fir(x, firlen)
     return (ca[..., None] * x + sa[..., None] * h).astype(x.dtype)

@@ -1,4 +1,4 @@
-"""Sharded batch/fleet processing over TPU meshes."""
+"""Sharded batch/fleet processing over device meshes."""
 
 from .batch import (
     batch_find_min_peak_angles,

@@ -4,17 +4,17 @@ Two parallelization regimes (SURVEY.md §5 "distributed communication
 backend"):
 
 * **files axis** (data parallel): a batch of stems sharded over the mesh,
-  every device sweeping/rotating its own files — the TPU replacement for
-  the reference's thread-per-channel fan-out.  No collectives; XLA's
+  every device sweeping/rotating its own files — in place of the
+  reference's thread-per-channel fan-out.  No collectives; XLA's
   sharding propagation keeps everything local.
 
 * **samples axis** (sequence parallel): one long file sharded across
   devices.  The partitioned convolution needs a ``parsiz``-sample left
-  halo from the neighboring shard — fetched with one ``ppermute`` hop over
-  ICI — and the per-angle peak table is combined with ``pmax``, replacing
+  halo from the neighboring shard — fetched with one ``ppermute`` hop —
+  and the per-angle peak table is combined with ``pmax``, replacing
   the reference's thread-join + std::max reduction
   (cli/phase-rotate.cc:295-298).  This is how hour-long masters are
-  analyzed at O(shard) memory per chip.
+  analyzed at O(shard) memory per device.
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from ..core.angles import MAXSAMPLE, all_angle_cos_sin
 from ..core.fir import offline_fir_spectrum
 from ..core.sizes import OfflineGeometry
-from ..kernels.rotate_peak import rotate_peak_sweep_kernel
+from ..kernels.choice import rotate_peak_sweep
 from ..ops.convolve import partitioned_convolve
 from ..ops.rotate import rotate_fir
 from ..search.minimize import SearchResult, select_min_peak_angles_batch
@@ -63,8 +63,7 @@ def batch_rotate(audio, degrees, mesh: Mesh, rate: float = 48000.0):
     return f(x, d)
 
 
-def batch_sweep_peaks(audio, geom: OfflineGeometry, mesh: Mesh,
-                      chunk: int = 4096):
+def batch_sweep_peaks(audio, geom: OfflineGeometry, mesh: Mesh):
     """Peak tables for a (files, ..., n) batch, files-sharded.
 
     Returns (tables, rot0) exactly like search.sweep_peaks_aux, computed
@@ -73,7 +72,7 @@ def batch_sweep_peaks(audio, geom: OfflineGeometry, mesh: Mesh,
     x = jnp.asarray(audio, jnp.float32)
     xspec = P("files", *([None] * (x.ndim - 1)))
     f = jax.jit(
-        lambda x: _sweep_impl(x, geom, chunk),
+        lambda x: _sweep_impl(x, geom),
         in_shardings=(NamedSharding(mesh, xspec),),
         out_shardings=(
             NamedSharding(mesh, P("files", *([None] * (x.ndim - 1)))),
@@ -132,7 +131,6 @@ def sharded_sweep_peaks(
     geom: OfflineGeometry,
     mesh: Mesh,
     axis: str = "samples",
-    chunk: int = 4096,
     file_axis: Optional[str] = None,
 ):
     """Angle sweep of long signal(s) sharded along the sample axis.
@@ -195,8 +193,7 @@ def sharded_sweep_peaks(
         mask = jnp.where(
             (idx == 0) & (jnp.arange(S) < parsiz), 0.0, 1.0
         ).astype(jnp.float32)
-        peaks = rotate_peak_sweep_kernel(
-            b0_local * mask, h_local * mask, cs, tile_len=chunk)
+        peaks = rotate_peak_sweep(b0_local * mask, h_local * mask, cs)
 
         # start-region contribution (device 0 only):
         # |sin| * max|h[firlen:parsiz]|
@@ -238,9 +235,9 @@ def sharded_rotate(
 ):
     """Sequence-parallel whole-file FIR rotation: one long signal's sample
     axis sharded across the mesh, each device convolving its shard with a
-    two-sided ``firlen/2`` halo fetched over ICI (``ppermute`` in both
-    directions), then mixing locally.  Output stays sample-sharded —
-    a multi-hour master rotates at O(shard) memory per chip with zero
+    two-sided ``firlen/2`` halo (``ppermute`` in both directions), then
+    mixing locally.  Output stays sample-sharded —
+    a multi-hour master rotates at O(shard) memory per device with zero
     host round trips.
 
     Matches :func:`phaserotate_tpu.ops.rotate_fir` exactly (edge devices'
@@ -311,15 +308,14 @@ def angle_sharded_sweep_peaks(
     geom: OfflineGeometry,
     mesh: Mesh,
     axis: str = "files",
-    chunk: int = 4096,
 ):
     """Peak table with the ANGLE grid sharded across the mesh — the
     domain's tensor parallelism, completing the axes inventory next to
     data parallelism over files and sequence parallelism over samples.
 
     The signal is replicated; each device sweeps its MAXSAMPLE/n_dev
-    slice of the 0.5-degree candidate grid (the Pallas kernel's VPU work
-    scales with the slice), and the slices ``all_gather`` into the full
+    slice of the 0.5-degree candidate grid (the sweep's work scales with
+    the slice), and the slices ``all_gather`` into the full
     replicated table.  Right for short single files where neither the
     file nor the sample axis offers enough parallelism.
 
@@ -340,13 +336,11 @@ def angle_sharded_sweep_peaks(
     cs_full = all_angle_cos_sin()  # (2, MAXSAMPLE)
 
     def shard_fn(x_rep):  # replicated signal on every device
-        from ..kernels.rotate_peak import rotate_peak_sweep_kernel
-
         idx = jax.lax.axis_index(axis)
         cs = jax.lax.dynamic_slice_in_dim(
             cs_full, idx * a_loc, a_loc, axis=1)
         b0, b1, h_start, x_peak = aligned_pair(x_rep, geom)
-        part = rotate_peak_sweep_kernel(b0, b1, cs, tile_len=chunk)
+        part = rotate_peak_sweep(b0, b1, cs)
         part = jnp.maximum(part, jnp.abs(cs[1]) * h_start[..., None])
         table = jax.lax.all_gather(part, axis, axis=-1, tiled=True)
         rot0 = table[..., 0]

@@ -1,7 +1,7 @@
 """Device mesh helpers.
 
 The reference's only parallelism is one pthread per audio channel
-(cli/phase-rotate.cc:437-444).  The TPU equivalents are axes of a
+(cli/phase-rotate.cc:437-444).  The equivalents here are axes of a
 ``jax.sharding.Mesh``:
 
 * ``files`` — data parallelism over a fleet of files/stems (replaces the
@@ -10,8 +10,8 @@ The reference's only parallelism is one pthread per audio channel
   sample axis with a ``ppermute`` halo exchange for the convolution
   overlap and a ``pmax`` tree for the peak table (parallel/batch.py).
 
-Within a pod slice these axes ride ICI; across slices DCN — the mesh shape
-decides, the code is identical.
+The mesh is built flat from ``jax.devices()``: every card reaches every
+other at the same rate, so the mesh follows the algorithm alone.
 """
 
 from __future__ import annotations

@@ -59,7 +59,7 @@ class HostDescriptor:
 
 PLUGIN_MONO = HostDescriptor(
     uri=PLUGIN_URI,
-    name="Phase Rotate (TPU) Mono",
+    name="Phase Rotate (GPU) Mono",
     n_channels=1,
     atom_bufsiz=ATOM_BUFSIZ,
     latency_port=2,
@@ -68,7 +68,7 @@ PLUGIN_MONO = HostDescriptor(
 
 PLUGIN_STEREO = HostDescriptor(
     uri=PLUGIN_URI_STEREO,
-    name="Phase Rotate (TPU) Stereo",
+    name="Phase Rotate (GPU) Stereo",
     n_channels=2,
     atom_bufsiz=ATOM_BUFSIZ,
     latency_port=2,

@@ -2,7 +2,7 @@
 
 Re-creates the LV2 plugin ABI surface (src/phaserotate.c:860-893 —
 instantiate / connect_port / activate / run / cleanup) as a Python class
-driving the TPU engine, so an audio host (our standalone hostapp, tests,
+driving the GPU engine, so an audio host (our standalone hostapp, tests,
 or an external bridge) gets exactly the reference's contract:
 
 * URI-based mono/stereo dispatch (src/phaserotate.c:233-240);
@@ -70,7 +70,7 @@ class PhaseRotatePlugin:
         # dispatch pipelining (stream/host.py module docstring): trade
         # `pipeline` frames of extra latency for per-block readbacks
         # that always have pipeline-depth slack — the soft-real-time
-        # mode for high-dispatch-latency (remote/tunnel) devices
+        # mode for devices with a slow dispatch round trip
         self.pipeline_depth = 0
         if options and "pipeline" in options:
             self.pipeline_depth = max(0, int(options["pipeline"]))
@@ -142,7 +142,7 @@ class PhaseRotatePlugin:
         else:
             # channels ride a vmapped batch axis: one dispatch per frame
             # for mono AND stereo (the reference spawns a thread per
-            # channel, cli/phase-rotate.cc:437-444; on TPU batching is
+            # channel, cli/phase-rotate.cc:437-444; here batching is
             # the fan-out)
             self._state = init_state(self.geom, (self.n_chn,))
             if self.device_index:
@@ -251,7 +251,7 @@ class PhaseRotatePlugin:
 
         All channels advance through one batched ``stream_step`` dispatch
         per completed ``parsiz`` frame (the reference runs a serial
-        per-channel loop; on TPU the channel axis batches the FFTs).
+        per-channel loop; here the channel axis batches the FFTs).
         """
         geom = self.geom
         parsiz = geom.parsiz

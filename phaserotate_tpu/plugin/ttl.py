@@ -105,8 +105,8 @@ def plugin_ttl(version_minor: int = 0, version_micro: int = 0) -> str:
     out = [_PREFIXES]
     out.append("@prefix rdf: <http://www.w3.org/1999/02/22-rdf-syntax-ns#> .\n")
     for uri, n_chn, label in (
-        (PLUGIN_URI, 1, "Phase Rotate (TPU) Mono"),
-        (PLUGIN_URI_STEREO, 2, "Phase Rotate (TPU) Stereo"),
+        (PLUGIN_URI, 1, "Phase Rotate (GPU) Mono"),
+        (PLUGIN_URI_STEREO, 2, "Phase Rotate (GPU) Stereo"),
     ):
         ports = _fixed_ports()
         for c in range(n_chn):

@@ -6,7 +6,7 @@ and re-analyzes each candidate's neighborhood at step 1, then unwraps the
 chosen angles to minimize inter-channel phase distance
 (cli/phase-rotate.cc:779-948).
 
-On TPU the full 720-entry peak table comes out of *one* batched sweep
+Here the full 720-entry peak table comes out of *one* batched sweep
 (search/sweep.py), so no file rewinds or re-reads are needed — but the
 selection below reproduces exactly the reference's visit order and
 tie-breaking (``<=`` keeps the last candidate visited,

@@ -231,8 +231,8 @@ def stream_step_batched(
 ) -> Tuple[StreamState, jnp.ndarray]:
     """:func:`stream_step` vmapped over a leading channel/batch axis.
 
-    One device dispatch advances every channel — the idiomatic TPU
-    replacement for the reference's thread-per-channel fan-out
+    One device dispatch advances every channel — in place of the
+    reference's thread-per-channel fan-out
     (cli/phase-rotate.cc:437-444): channels ride the batch axis of the
     same FFTs instead of separate threads.
 
@@ -338,8 +338,8 @@ def stream_process_bulk(
     (resolved by :func:`angle_sequence` up front).  So the whole bulk call
     becomes: one batched rfft over all frames, a block-axis FIR MAC
     (static slices of the extended spectrum sequence), one batched irfft,
-    a shifted add for the OLA, and the vmapped rotation mix — the shapes
-    XLA and the MXU want, with identical per-block arithmetic.
+    a shifted add for the OLA, and the vmapped rotation mix — batched
+    shapes for XLA, with identical per-block arithmetic.
 
     Same signature/semantics as :func:`stream_process` including the
     returned mid-stream state (bit-matching continuation; parity-tested).
@@ -391,54 +391,6 @@ def stream_process_bulk(
     return new_state, out
 
 
-def _internal_angle_params(angles, das, geom: StreamGeometry):
-    """Expand per-plugin-block (angle, slope) to the kernel's internal
-    256-sample framing: frame j of a block starts ``256*j`` samples into
-    its ramp."""
-    from ..kernels.stream_conv import P
-
-    r = geom.parsiz // P
-    offs = jnp.float32(P) * jnp.arange(r, dtype=jnp.float32)
-    a = angles[:, None] + das[:, None] * offs[None, :]
-    d = jnp.broadcast_to(das[:, None], a.shape)
-    return jnp.stack([a.reshape(-1), d.reshape(-1)], axis=-1)
-
-
-def _rotate_streamed_fused(frames, targets, geom: StreamGeometry,
-                           chunk_frames: int) -> jnp.ndarray:
-    """Whole-stream rotation through the fused small-geometry kernel
-    (kernels/stream_conv.py) — a fresh plugin instance's exact stream.
-
-    Chunking contract: the kernel's entire cross-frame state (spectrum
-    history, OLA tail, dry-signal delay) reaches back at most
-    ``firlen`` samples — the tail of a chunk's first frame needs the
-    full ``firlen/256`` previous frames — so each chunk re-feeds those
-    as a prelude and drops their outputs, bit-identical to the
-    unchunked run (older history contributes exact zeros).
-    """
-    from ..kernels.stream_conv import P, fused_stream_mix
-
-    n_frames = frames.shape[0]
-    angles, das, _, _ = angle_sequence(
-        jnp.zeros((), jnp.float32), targets, geom)
-    params = _internal_angle_params(angles, das, geom)[None]
-    fr256 = frames.reshape(1, -1, P)
-    total_int = fr256.shape[1]
-    pre = geom.firlen // P
-    chunk_int = chunk_frames * (geom.parsiz // P)
-    if total_int <= chunk_int:
-        return fused_stream_mix(fr256, params, geom.firlen)[0].reshape(-1)
-    outs = []
-    for start in range(0, total_int, chunk_int):
-        lead = min(pre, start)
-        end = min(start + chunk_int, total_int)
-        out = fused_stream_mix(
-            fr256[:, start - lead : end],
-            params[:, start - lead : end], geom.firlen)
-        outs.append(out[0, lead:].reshape(-1))
-    return jnp.concatenate(outs)
-
-
 def rotate_streamed(
     audio,
     degrees,
@@ -471,24 +423,14 @@ def rotate_streamed(
     frames = x_pad.reshape(pad_frames, parsiz)
     targets = jnp.full((pad_frames,), jnp.float32(degrees))
 
-    from ..kernels.rotate_peak import on_tpu
-    from ..kernels.stream_conv import stream_mix_supported
-
-    if on_tpu() and stream_mix_supported(geom.firlen):
-        y = _rotate_streamed_fused(frames, targets, geom, chunk_frames)
-    elif pad_frames <= chunk_frames:
-        state = init_state(geom)
-        _, out_frames = stream_process_bulk(state, frames, targets, geom)
-        y = out_frames.reshape(total)
-    else:
-        state = init_state(geom)
-        outs = []
-        for start in range(0, pad_frames, chunk_frames):
-            state, out_frames = stream_process_bulk(
-                state, frames[start : start + chunk_frames],
-                targets[start : start + chunk_frames], geom)
-            outs.append(out_frames.reshape(-1))
-        y = jnp.concatenate(outs)
+    state = init_state(geom)
+    outs = []
+    for start in range(0, pad_frames, chunk_frames):
+        state, out_frames = stream_process_bulk(
+            state, frames[start : start + chunk_frames],
+            targets[start : start + chunk_frames], geom)
+        outs.append(out_frames.reshape(-1))
+    y = jnp.concatenate(outs)
     if trim_latency:
         # the scan output already absorbs the parsiz pipeline delay (frame k
         # of the output is computed from input frame k); only the FIR group

@@ -8,14 +8,13 @@ reference's offset bookkeeping.  Output always lags input by
 ``parsiz + firlen/2`` samples.
 
 This is the host-side (numpy) shell around the jitted device engine —
-equivalent in role to the LV2 run() glue, with the DSP on TPU.
+equivalent in role to the LV2 run() glue, with the DSP on the device.
 
 Pipelined mode (``pipeline_depth > 0``): the synchronous shell forces a
 device→host readback per completed frame, so its real-time margin is
-bounded by the dispatch round-trip — ~0.1 ms on a locally attached TPU,
-but tens of ms through a remote tunnel, where per-frame readback cannot
-hold a 5.3 ms budget (parsiz 256 @ 48 kHz).  Enqueueing is asynchronous
-and cheap (~10 µs), and transfers started with ``copy_to_host_async``
+bounded by the dispatch round-trip; where that round trip approaches the
+5.3 ms budget (parsiz 256 @ 48 kHz), per-frame readback cannot hold real
+time.  Enqueueing is asynchronous and cheap, and transfers started with ``copy_to_host_async``
 overlap with later dispatches; so with a depth-``D`` output pipeline the
 shell emits the output of frame ``j-D`` while frame ``j`` computes,
 and every readback it performs has had ``D`` frames of slack to land.

@@ -1,13 +1,10 @@
 """Real/imag-pair complex representation.
 
-The TPU runtime used here supports complex64 only as an *intermediate*
-inside a compiled program: eagerly creating complex arrays, embedding
-complex constants in jitted code, and transferring complex buffers to the
-host all fail.  The framework therefore never lets complex values cross the
-host<->device boundary: spectra live as float32 arrays with a trailing
-[real, imag] axis ("ri" format) and are combined with ``lax.complex`` only
-inside jit, where XLA decomposes them back into real arithmetic anyway —
-this is the natural TPU representation, not a workaround.
+The framework never lets complex values cross the host<->device
+boundary: spectra live as float32 arrays with a trailing [real, imag] axis
+("ri" format) and are combined with ``lax.complex`` only inside jit, where
+XLA decomposes them back into real arithmetic anyway.  Complex64 thus only
+ever exists as an intermediate inside a compiled program.
 """
 
 from __future__ import annotations

@@ -2,7 +2,7 @@
 
 A deliberately *literal* float32 re-derivation of the serial block-by-block
 algorithm (PhaseRotateProc / PhaseRotate, cli/phase-rotate.cc:125-485),
-used as the parity oracle for the batched TPU sweep.  Slow by construction;
+used as the parity oracle for the batched device sweep.  Slow by construction;
 tests keep inputs small.
 """
 

@@ -1,6 +1,6 @@
 """Host bridge: engine daemon + native clients (file streamer, LV2 shim).
 
-The product-form tests: an external process streams audio through the TPU
+The product-form tests: an external process streams audio through the GPU
 engine without importing the package (VERDICT round-1, missing #1).  The
 daemon subprocess inherits JAX_PLATFORMS=cpu from conftest.
 """
@@ -802,7 +802,7 @@ def test_auto_pipeline_depth_sizing():
 
     # local device: ~0.1 ms RTT -> slack frames only
     assert auto_pipeline_depth(1e-4, 48000, 256) == 3
-    # remote tunnel: 30 ms RTT @ 5.33 ms frames -> 6 + 2
+    # slow link: 30 ms RTT @ 5.33 ms frames -> 6 + 2
     assert auto_pipeline_depth(0.030, 48000, 256) == 8
     # the sized depth stays inside ~2x RTT of extra latency
     extra_s = auto_pipeline_depth(0.030, 48000, 256) * 256 / 48000

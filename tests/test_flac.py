@@ -347,3 +347,42 @@ def test_lpc_stream_decodes_in_python_and_native(tmp_path):
     finally:
         native.flac_decode = orig
     np.testing.assert_array_equal(y_native, y_py)
+
+
+def _crc16_bytewise(data: bytes) -> int:
+    """The table-driven byte-at-a-time CRC-16 (polynomial 0x8005)."""
+    from phaserotate_tpu.io.flac import _CRC16
+
+    c = 0
+    for b in data:
+        c = ((c << 8) & 0xFFFF) ^ int(_CRC16[((c >> 8) ^ b) & 0xFF])
+    return c
+
+
+@pytest.mark.parametrize("length", [0, 1, 2, 3, 255, 4097, 70001])
+def test_crc16_tree_matches_bytewise(rng, length):
+    from phaserotate_tpu.io.flac import _crc16
+
+    data = rng.integers(0, 256, length).astype(np.uint8).tobytes()
+    assert _crc16(data) == _crc16_bytewise(data)
+
+
+@pytest.mark.parametrize("widths", [
+    [1], [64, 3, 61, 2], [9, 70, 1, 1, 15, 200, 4, 63, 65],
+])
+def test_write_fields_matches_write_uint(rng, widths):
+    """One vectorized pack equals the field-by-field writer, including
+    fields that straddle 64-bit words and long unary-style runs."""
+    from phaserotate_tpu.io.flac import _BitWriter
+
+    widths = np.asarray(widths)
+    values = np.array([int(rng.integers(0, 1 << min(w, 16)))
+                       for w in widths])
+    a, b = _BitWriter(), _BitWriter()
+    a.write_uint(5, 3)  # start unaligned
+    b.write_uint(5, 3)
+    a.write_fields(values, widths)
+    for v, w in zip(values, widths):
+        b.write_uint(int(v), int(w))
+    assert a.nbits == b.nbits
+    assert a.tobytes() == b.tobytes()

@@ -1,24 +1,29 @@
-"""Pallas kernels vs XLA reference implementations (interpret mode on CPU)."""
+"""Sweep implementations and the convolutions against plain references.
+
+The Triton sweep kernel runs here in Pallas interpret mode (its explicit
+``interpret=True``); the compiled kernel is checked on the GPU by
+tests_gpu/ and chip_smoke.py.
+"""
+
+import inspect
 
 import numpy as np
 import pytest
 
 from phaserotate_tpu.core.angles import MAXSAMPLE, all_angle_cos_sin
-from phaserotate_tpu.kernels import peak_kernel, rotate_peak_sweep_kernel
-from phaserotate_tpu.ops.peak import rotated_peak_sweep
+from phaserotate_tpu.kernels import choice, rotate_peak_sweep_kernel
+from phaserotate_tpu.kernels.rotate_peak import sweep_splits
+from phaserotate_tpu.ops.peak import rotated_peak_sweep, rotated_peak_sweep_tiled
 
 
-def test_peak_kernel_matches_numpy(rng):
-    for n in (1, 100, 65536, 100001):
-        x = rng.standard_normal(n).astype(np.float32)
-        got = float(peak_kernel(x))
-        assert got == pytest.approx(float(np.abs(x).max()), rel=1e-7)
-
-
-def test_peak_kernel_negative_peak(rng):
-    x = rng.standard_normal(5000).astype(np.float32)
-    x[1234] = -7.5
-    assert float(peak_kernel(x)) == pytest.approx(7.5)
+def _reference(b0, b1, cs):
+    """ops/peak.rotated_peak_sweep row by row over any leading dims."""
+    lead = b0.shape[:-1]
+    r0 = b0.reshape(-1, b0.shape[-1])
+    r1 = b1.reshape(-1, b1.shape[-1])
+    rows = [np.asarray(rotated_peak_sweep(r0[i], r1[i], cs))
+            for i in range(r0.shape[0])]
+    return np.stack(rows).reshape(*lead, cs.shape[-1])
 
 
 def test_sweep_kernel_matches_xla_scan(rng):
@@ -26,7 +31,8 @@ def test_sweep_kernel_matches_xla_scan(rng):
     b0 = rng.standard_normal(n).astype(np.float32)
     b1 = rng.standard_normal(n).astype(np.float32)
     cs = all_angle_cos_sin()
-    got = np.asarray(rotate_peak_sweep_kernel(b0, b1, cs, tile_len=8192))
+    got = np.asarray(rotate_peak_sweep_kernel(b0, b1, cs, tile_len=1024,
+                                              interpret=True))
     want = np.asarray(rotated_peak_sweep(b0, b1, cs))
     assert got.shape == (MAXSAMPLE,)
     np.testing.assert_allclose(got, want, atol=2e-5)
@@ -37,267 +43,155 @@ def test_sweep_kernel_matches_direct(rng):
     b0 = rng.standard_normal(n).astype(np.float32)
     b1 = rng.standard_normal(n).astype(np.float32)
     cs = np.asarray(all_angle_cos_sin())
-    got = np.asarray(rotate_peak_sweep_kernel(b0, b1, cs, tile_len=2048))
+    got = np.asarray(rotate_peak_sweep_kernel(b0, b1, cs, tile_len=512,
+                                              interpret=True))
     direct = np.abs(
         cs[0][:, None] * b0[None] + cs[1][:, None] * b1[None]
     ).max(axis=1)
     np.testing.assert_allclose(got, direct, atol=2e-5)
 
 
-class TestFusedConv:
-    """Fused MXU OLA convolution kernel (kernels/fused_conv.py) — the TPU
-    production path of hilbert_fir / hilbert_offline."""
-
-    def test_matches_partitioned_convolve(self, rng):
-        from phaserotate_tpu.core.fir import partition_fir_spectra
-        from phaserotate_tpu.kernels.fused_conv import (
-            fused_ola_conv, hilbert_fir_kk)
-        from phaserotate_tpu.ops.convolve import partitioned_convolve
-        import jax.numpy as jnp
-
-        firlen, parsiz = 3072, 4096
-        x = rng.standard_normal((2, 3 * parsiz)).astype(np.float32)
-        frames = jnp.asarray(x).reshape(2, 3, parsiz)
-        kk = hilbert_fir_kk(firlen, parsiz)
-        ref = np.asarray(partitioned_convolve(
-            jnp.asarray(x), partition_fir_spectra(firlen, firlen), firlen
-        ))[:, : 3 * parsiz]
-        for tb in (1, 2, 4):
-            h = np.asarray(fused_ola_conv(frames, kk, parsiz, t_blocks=tb))
-            np.testing.assert_allclose(h, ref, atol=3e-6)
-
-    def test_fused_hilbert_equals_xla_hilbert_fir(self, rng):
-        """The dispatch alternative paths of ops.rotate.hilbert_fir agree."""
-        from phaserotate_tpu.kernels.fused_conv import fused_hilbert
-        from phaserotate_tpu.ops.rotate import hilbert_fir
-        import jax.numpy as jnp
-
-        firlen = 3072
-        n = 10000  # non-multiple of parsiz
-        x = rng.standard_normal((3, n)).astype(np.float32)
-        lat = firlen // 2
-        want = np.asarray(hilbert_fir(jnp.asarray(x), firlen))  # XLA on CPU
-        full = np.asarray(fused_hilbert(jnp.asarray(x), firlen))
-        got = full[..., lat : lat + n]
-        assert full.shape[-1] >= n + lat
-        np.testing.assert_allclose(got, want, atol=3e-6)
-
-    def test_fused_offline_geometry(self, rng):
-        """parsiz == firlen (the CLI/search geometry) matches the XLA
-        single-partition OLA used by hilbert_offline."""
-        from phaserotate_tpu.core.fir import offline_fir_spectrum
-        from phaserotate_tpu.core.sizes import OfflineGeometry
-        from phaserotate_tpu.kernels.fused_conv import fused_hilbert
-        from phaserotate_tpu.ops.convolve import partitioned_convolve
-        import jax.numpy as jnp
-
-        geom = OfflineGeometry(blksiz=2048)
-        n = 2 * geom.parsiz + 123
-        x = rng.standard_normal(n).astype(np.float32)
-        n_blocks = -(-n // geom.parsiz)
-        want = np.asarray(partitioned_convolve(
-            jnp.asarray(x), offline_fir_spectrum(geom)[None], geom.parsiz
-        ))[: (n_blocks + 1) * geom.parsiz]
-        got = np.asarray(fused_hilbert(
-            jnp.asarray(x), firlen=geom.parsiz, parsiz=geom.parsiz))
-        assert got.shape == want.shape
-        np.testing.assert_allclose(got, want, atol=3e-6)
-
-    def test_parsiz_validation(self):
-        from phaserotate_tpu.kernels.fused_conv import (
-            fused_hilbert, fused_parsiz_for, supported_parsiz)
-        import jax.numpy as jnp
-
-        assert fused_parsiz_for(3072) == 4096
-        assert fused_parsiz_for(4096) == 4096
-        assert fused_parsiz_for(8192) == 8192
-        assert not supported_parsiz(1024)
-        assert not supported_parsiz(3072)
-        with pytest.raises(ValueError):
-            fused_hilbert(jnp.zeros(100), firlen=3072, parsiz=1024)
-
-    def test_fused_rotate_fir_matches_unfused(self, rng):
-        """The single-pass rotate kernel (conv + group delay + mix in
-        VMEM) equals the unfused hilbert+mix path for per-element
-        angles."""
-        from phaserotate_tpu.core.angles import (
-            degrees_to_turns, sin_cos_turns)
-        from phaserotate_tpu.kernels.fused_conv import (
-            fused_rotate_fir, mix_supported)
-        from phaserotate_tpu.ops.rotate import hilbert_fir
-        import jax.numpy as jnp
-
-        for firlen in (3072, 4096):
-            assert mix_supported(firlen)
-            x = rng.standard_normal((2, 10000)).astype(np.float32)
-            turns = degrees_to_turns(np.array([35.0, -120.0], np.float32))
-            sa, ca = sin_cos_turns(turns)
-            h = np.asarray(hilbert_fir(jnp.asarray(x), firlen))
-            want = (np.asarray(ca)[:, None] * x
-                    + np.asarray(sa)[:, None] * h)
-            got = np.asarray(fused_rotate_fir(jnp.asarray(x), turns, firlen))
-            np.testing.assert_allclose(got, want, atol=3e-6)
-
-    def test_fused_rotate_fir_zero_angle_identity(self, rng):
-        from phaserotate_tpu.kernels.fused_conv import fused_rotate_fir
-        import jax.numpy as jnp
-
-        x = rng.standard_normal(9000).astype(np.float32)
-        got = np.asarray(fused_rotate_fir(
-            jnp.asarray(x)[None], jnp.zeros(1), 3072))[0]
-        np.testing.assert_allclose(got, x, atol=1e-6)
-
-    def test_mix_supported_table(self):
-        from phaserotate_tpu.kernels.fused_conv import mix_supported
-
-        assert mix_supported(3072)   # 48k stream FIR
-        assert mix_supported(4096)   # 96k stream FIR
-        assert mix_supported(8192)   # 192k stream FIR
-
-    def test_geometry_16384(self, rng):
-        """fftlen 16384 (split 256x64): parity against the XLA
-        partitioned convolve."""
-        from phaserotate_tpu.core.fir import partition_fir_spectra
-        from phaserotate_tpu.kernels.fused_conv import fused_hilbert
-        from phaserotate_tpu.ops.convolve import partitioned_convolve
-        import jax.numpy as jnp
-
-        firlen = 8192  # parsiz 8192 -> fftlen 16384 -> n2 = 128
-        n = 2 * 8192 + 77
-        x = rng.standard_normal(n).astype(np.float32)
-        want = np.asarray(partitioned_convolve(
-            jnp.asarray(x), partition_fir_spectra(firlen, firlen), firlen
-        ))[: 3 * 8192]
-        got = np.asarray(fused_hilbert(jnp.asarray(x), firlen))[: 3 * 8192]
-        np.testing.assert_allclose(got, want, atol=1e-5)
-
-    def test_parsiz_32768_falls_back_to_xla(self, rng):
-        """blksiz 32768 (fftlen 65536) exceeds the kernel's VMEM budget
-        for DFT constants — supported_parsiz rejects it and the sweep
-        pipeline must take the XLA path instead of OOMing VMEM."""
-        from phaserotate_tpu.kernels.fused_conv import supported_parsiz
-
-        assert supported_parsiz(16384)
-        assert not supported_parsiz(32768)
-        # the dispatch point honors it (hilbert_offline on CPU already
-        # takes the XLA path; this guards the TPU branch condition)
+# (length, tile, block of angles, leading dims, angle slice)
+KERNEL_CASES = [
+    (1, 256, 32, (), slice(None)),
+    (255, 256, 32, (), slice(None)),
+    (257, 128, 64, (2,), slice(None)),
+    (5000, 256, 32, (2, 3), slice(None)),
+    (4096, 512, 16, (3,), slice(None)),
+    (3001, 1024, 128, (1, 2), slice(None)),
+    (2000, 256, 32, (2,), slice(90, 180)),
+    (1500, 128, 32, (), slice(0, 45)),
+]
 
 
-class TestStreamConv:
-    """Small-geometry direct-DFT kernel (kernels/stream_conv.py) — the
-    TPU production path for the plugin geometries (parsiz 256/512/1024,
-    src/phaserotate.c:278-297) and the offline MIN_BLKSIZ (1024)."""
+@pytest.mark.parametrize("n,tile,block,lead,angles", KERNEL_CASES)
+def test_sweep_kernel_interpret_matches_reference(rng, n, tile, block,
+                                                  lead, angles):
+    """Ragged lengths, tile sizes, batch dims and angle slices (the
+    angle-parallel mesh path) against the plain reference."""
+    b0 = rng.standard_normal((*lead, n)).astype(np.float32)
+    b1 = rng.standard_normal((*lead, n)).astype(np.float32)
+    cs = np.asarray(all_angle_cos_sin())[:, angles]
+    got = np.asarray(rotate_peak_sweep_kernel(
+        b0, b1, cs, block_angles=block, tile_len=tile, interpret=True))
+    want = _reference(b0, b1, cs)
+    assert got.shape == (*lead, cs.shape[-1])
+    np.testing.assert_allclose(got, want, rtol=2.5e-7, atol=1e-7)
 
-    @pytest.mark.parametrize("taps", [1024, 3072, 4096, 8192])
-    def test_conv_matches_partitioned_convolve(self, rng, taps):
-        import jax.numpy as jnp
 
-        from phaserotate_tpu.core.fir import partition_fir_spectra
-        from phaserotate_tpu.kernels.stream_conv import fused_hilbert_small
-        from phaserotate_tpu.ops.convolve import partitioned_convolve
+@pytest.mark.parametrize("signals,blocks,tiles,want", [
+    (512, 12, 1875, 1),     # a full search batch fills the device alone
+    (2, 12, 41000, 43),     # one stereo track: split the samples
+    (1, 12, 6, 1),          # too short to split: >= 4 tiles per program
+])
+def test_sweep_splits(signals, blocks, tiles, want):
+    got = sweep_splits(signals, blocks, tiles)
+    assert got == want
+    assert got == 1 or tiles // got >= 4
 
-        n = 5000
-        x = jnp.asarray(rng.standard_normal((2, n)).astype(np.float32))
-        h = np.asarray(fused_hilbert_small(x, taps, t_blocks=16))
-        want = np.asarray(partitioned_convolve(
-            x, partition_fir_spectra(taps, taps), taps))
-        m = min(h.shape[-1], want.shape[-1])
-        np.testing.assert_allclose(h[..., :m], want[..., :m], atol=1e-5)
 
-    @pytest.mark.parametrize("rate", [48000, 96000, 192000])
-    def test_stream_mix_matches_scan_engine(self, rng, rate):
-        """Full fused block body (conv + delay + per-sample angle ramp)
-        vs the sequential scan engine, across every plugin geometry."""
-        import jax.numpy as jnp
+@pytest.mark.parametrize("n,lead", [
+    (1, ()), (777, (3,)), (20000, (2, 2)), (4097, (40,)),
+])
+def test_tiled_xla_sweep_matches_reference(rng, n, lead):
+    b0 = rng.standard_normal((*lead, n)).astype(np.float32)
+    b1 = rng.standard_normal((*lead, n)).astype(np.float32)
+    cs = np.asarray(all_angle_cos_sin())
+    got = np.asarray(rotated_peak_sweep_tiled(b0, b1, cs))
+    np.testing.assert_allclose(got, _reference(b0, b1, cs),
+                               rtol=2.5e-7, atol=1e-7)
 
-        from phaserotate_tpu.core.sizes import stream_geometry_for_rate
-        from phaserotate_tpu.kernels.stream_conv import P, fused_stream_mix
-        from phaserotate_tpu.stream.engine import (
-            _internal_angle_params,
-            angle_sequence,
-            init_state,
-            stream_process,
-        )
 
-        geom = stream_geometry_for_rate(rate)
-        n_frames = 20
-        frames = rng.standard_normal(
-            (n_frames, geom.parsiz)).astype(np.float32)
-        targets = np.concatenate(
-            [np.zeros(3), np.full(10, 90.0), np.full(7, -50.0)]).astype(
-            np.float32)
-        _, want = stream_process(
-            init_state(geom), jnp.asarray(frames), jnp.asarray(targets),
-            geom)
-        angles, das, _, _ = angle_sequence(
-            jnp.zeros((), jnp.float32), jnp.asarray(targets), geom)
-        params = _internal_angle_params(angles, das, geom)[None]
-        out = np.asarray(fused_stream_mix(
-            jnp.asarray(frames.reshape(1, -1, P)), params, geom.firlen,
-            t_blocks=8))
-        np.testing.assert_allclose(
-            out.reshape(n_frames, geom.parsiz), np.asarray(want),
-            atol=1e-5)
+@pytest.mark.parametrize("platform,want", [
+    ("gpu", "triton"), ("cpu", "xla"), ("rocm", "xla"),
+])
+def test_chooser_per_platform(platform, want):
+    assert choice.sweep_implementation(platform) == want
 
-    def test_rotate_small_matches_unfused(self, rng):
-        import jax.numpy as jnp
 
-        from phaserotate_tpu.core.angles import degrees_to_turns
-        from phaserotate_tpu.core.fir import partition_fir_spectra
-        from phaserotate_tpu.kernels.stream_conv import fused_rotate_small
-        from phaserotate_tpu.ops.convolve import partitioned_convolve
+def test_chooser_on_cpu_runs_xla_not_the_kernel(rng, monkeypatch):
+    from phaserotate_tpu.kernels import rotate_peak
 
-        firlen, n = 3072, 9000
-        x = rng.standard_normal((3, n)).astype(np.float32)
-        degs = np.asarray([0.0, 90.0, -77.0], np.float32)
-        turns = degrees_to_turns(jnp.asarray(degs))
-        got = np.asarray(fused_rotate_small(
-            jnp.asarray(x), turns, firlen, t_blocks=16))
-        lat = firlen // 2
-        h = np.asarray(partitioned_convolve(
-            jnp.asarray(x), partition_fir_spectra(firlen, firlen),
-            firlen))[:, lat : lat + n]
-        sa = np.sin(2 * np.pi * np.asarray(turns))
-        ca = np.cos(2 * np.pi * np.asarray(turns))
-        want = ca[:, None] * x + sa[:, None] * h
-        np.testing.assert_allclose(got, want, atol=2e-5)
-        # angle 0: exact identity (cos=1, sin=0 exactly at turns=0)
-        np.testing.assert_allclose(got[0], x[0], atol=1e-6)
+    def refuse(*a, **k):
+        raise AssertionError("kernel reached on the CPU backend")
 
-    def test_chunked_prelude_equals_unchunked(self, rng):
-        """rotate_streamed's fused chunking contract: re-feeding the
-        firlen/256-1 prelude frames and dropping their outputs is
-        bit-identical to one unchunked call."""
-        import jax.numpy as jnp
+    monkeypatch.setattr(rotate_peak, "rotate_peak_sweep_kernel", refuse)
+    b0 = rng.standard_normal((2, 300)).astype(np.float32)
+    b1 = rng.standard_normal((2, 300)).astype(np.float32)
+    cs = np.asarray(all_angle_cos_sin())
+    got = np.asarray(choice.rotate_peak_sweep(b0, b1, cs))
+    np.testing.assert_allclose(got, _reference(b0, b1, cs),
+                               rtol=2.5e-7, atol=1e-7)
 
-        from phaserotate_tpu.core.sizes import stream_geometry_for_rate
-        from phaserotate_tpu.stream.engine import (
-            _rotate_streamed_fused,
-            angle_sequence,
-        )
 
-        geom = stream_geometry_for_rate(48000)
-        n_frames = 40
-        frames = jnp.asarray(rng.standard_normal(
-            (n_frames, geom.parsiz)).astype(np.float32))
-        targets = jnp.asarray(
-            np.full(n_frames, 35.0, np.float32))
-        whole = np.asarray(_rotate_streamed_fused(
-            frames, targets, geom, chunk_frames=n_frames))
-        split = np.asarray(_rotate_streamed_fused(
-            frames, targets, geom, chunk_frames=13))
-        np.testing.assert_array_equal(whole, split)
+def test_chooser_never_asks_for_interpret_mode(monkeypatch):
+    """On the GPU the chooser calls the compiled kernel with no
+    ``interpret`` argument, and the kernel's default compiles."""
+    from phaserotate_tpu.kernels import rotate_peak
 
-    def test_support_tables(self):
-        from phaserotate_tpu.kernels.stream_conv import (
-            small_conv_supported,
-            stream_mix_supported,
-        )
+    sig = inspect.signature(rotate_peak.rotate_peak_sweep_kernel)
+    assert sig.parameters["interpret"].default is False
+    seen = {}
 
-        assert small_conv_supported(1024)   # offline MIN_BLKSIZ FIR
-        assert stream_mix_supported(3072)   # 44.1/48k
-        assert stream_mix_supported(4096)   # 88.2/96k
-        assert stream_mix_supported(8192)   # >=128k
-        assert not small_conv_supported(100)
-        assert not small_conv_supported(256)  # ns=1: no delay line
-        assert not small_conv_supported(64 * 256 + 256)
+    def record(b0, b1, cs, **kwargs):
+        seen.update(kwargs)
+        return "kernel"
+
+    monkeypatch.setattr(rotate_peak, "rotate_peak_sweep_kernel", record)
+    monkeypatch.setattr(choice.jax, "default_backend", lambda: "gpu")
+    assert choice.rotate_peak_sweep(None, None, None) == "kernel"
+    assert "interpret" not in seen
+
+
+def _np_hilbert(x, taps):
+    """float64 linear convolution with the reference FIR."""
+    from phaserotate_tpu.core.fir import _design_hilbert_fir_np
+
+    fir = _design_hilbert_fir_np(taps).astype(np.float64)
+    return np.stack([np.convolve(row, fir) for row in
+                     np.atleast_2d(x).astype(np.float64)])
+
+
+@pytest.mark.parametrize("firlen", [3072, 4096, 8192])
+def test_hilbert_fir_matches_float64_convolution(rng, firlen):
+    """The stream FIR lengths (48/96/192 kHz), time-aligned."""
+    from phaserotate_tpu.ops.rotate import hilbert_fir
+
+    n = 2 * firlen + 123
+    x = rng.standard_normal((2, n)).astype(np.float32)
+    got = np.asarray(hilbert_fir(x, firlen))
+    lat = firlen // 2
+    want = _np_hilbert(x, firlen)[:, lat : lat + n]
+    np.testing.assert_allclose(got, want, atol=2e-5)
+
+
+@pytest.mark.parametrize("blksiz", [1024, 32768])
+def test_hilbert_offline_matches_float64_convolution(rng, blksiz):
+    """The offline geometry's extremes (CLI MIN_BLKSIZ and MAX_BLKSIZ)."""
+    from phaserotate_tpu.core.sizes import OfflineGeometry
+    from phaserotate_tpu.search.sweep import hilbert_offline
+
+    geom = OfflineGeometry(blksiz=blksiz)
+    n = blksiz + 777
+    x = rng.standard_normal(n).astype(np.float32)
+    got = np.asarray(hilbert_offline(x, geom))
+    n_blocks = -(-n // geom.parsiz)
+    assert got.shape == ((n_blocks + 1) * geom.parsiz,)
+    full = _np_hilbert(x, geom.parsiz)[0]
+    want = np.zeros(got.shape)  # beyond the convolution's support: zero
+    m = min(len(full), len(got))
+    want[:m] = full[:m]
+    np.testing.assert_allclose(got, want, atol=2e-5)
+
+
+@pytest.mark.parametrize("rate", [48000, 96000, 192000])
+def test_rotate_streamed_matches_rotate_fir(rng, rate):
+    """The whole-signal streaming engine equals the offline FIR rotation
+    at every plugin geometry."""
+    from phaserotate_tpu.ops.rotate import rotate_fir
+    from phaserotate_tpu.stream.engine import rotate_streamed
+
+    x = rng.standard_normal(12000).astype(np.float32)
+    got = np.asarray(rotate_streamed(x, -63.0, rate=rate))
+    want = np.asarray(rotate_fir(x, -63.0, rate=rate))
+    np.testing.assert_allclose(got, want, atol=1e-5)

@@ -1,5 +1,5 @@
 """Optional ALSA playback binding, driven against a mock libasound
-(the real library is absent in CI/TPU environments by design)."""
+(the real library is absent in CI and accelerator environments by design)."""
 
 import ctypes
 

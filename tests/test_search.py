@@ -349,25 +349,3 @@ def test_read_audio_pcm16_fleet_roundtrip(tmp_path, rng):
         assert a16.dtype == np.int16 and r16 == rf == 48000
         np.testing.assert_array_equal(
             a16.astype(np.float32) / 32768.0, af)
-
-
-def test_bf16_flag_noop_off_tpu(rng):
-    """The opt-in bf16 sweep flag only alters MXU matmul precision; off
-    TPU (this suite's CPU mesh) it must be a pure no-op — identical
-    tables either way.  The on-chip guard (tests_tpu) adjudicates the
-    real bf16 behavior (measured r5: guard FAILS, bf16 stays out of
-    the fleet path)."""
-    from phaserotate_tpu.core.sizes import OfflineGeometry
-    from phaserotate_tpu.search.sweep import sweep_peaks_aux_pcm16
-
-    geom = OfflineGeometry(blksiz=1024)
-    n = 5000
-    t = np.arange(n) / 48000.0
-    x16 = np.clip(np.rint(
-        20000 * (0.5 * np.sin(2 * np.pi * 220 * t)
-                 + 0.05 * rng.standard_normal(n))),
-        -32768, 32767).astype(np.int16)[None, None]
-    a_t, a_r = sweep_peaks_aux_pcm16(x16, geom, bf16=False)
-    b_t, b_r = sweep_peaks_aux_pcm16(x16, geom, bf16=True)
-    np.testing.assert_array_equal(np.asarray(a_t), np.asarray(b_t))
-    np.testing.assert_array_equal(np.asarray(a_r), np.asarray(b_r))

@@ -47,7 +47,7 @@ def webhost():
 def test_page_and_state(webhost, rng):
     host, ui = webhost
     page = _get(ui.url).decode()
-    assert "Phase Rotate (TPU)" in page and "/state" in page
+    assert "Phase Rotate (GPU)" in page and "/state" in page
 
     x = (0.5 * rng.standard_normal((2, 512))).astype(np.float32)
     for _ in range(12):

@@ -376,7 +376,7 @@ def test_full_stack_ui_plugin_daemon(native_built, monkeypatch, rng):
     """One host process wires prt_xui.so to phaserotate_tpu.so over the
     real atom ports and streams audio through the daemon — the complete
     reference workflow (DSP src/phaserotate.c + GUI gui/phaserotate.c)
-    re-assembled across the TPU process split.  The UI's dial drives the
+    re-assembled across the engine's process split.  The UI's dial drives the
     rotation; the DSP's levels stream lights the UI's meters."""
     import subprocess
     import sys as _sys
